@@ -2,7 +2,7 @@
 // images into padded float32 canvases on background threads and hands
 // them to the Python host through a bounded ring buffer.
 //
-// TPU-native runtime counterpart of the reference's synchronous
+// Runtime counterpart of the reference's synchronous
 // cv2.imread-everything-up-front loaders
 // (/root/reference/visual_odometry_solution_methods.py:31-33 loads the
 // whole sequence into RAM before the loop). Here decode overlaps with

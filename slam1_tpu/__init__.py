@@ -1,10 +1,10 @@
-"""slam1_tpu — a TPU-native stereo visual SLAM framework.
+"""slam1_tpu — a stereo visual SLAM framework in JAX, run on an NVIDIA GPU.
 
 A from-scratch rebuild of the capabilities of the reference pipeline
-(DavidHan008/SLAM-1, see SURVEY.md) designed TPU-first: fixed-capacity
-masked tensors, jit/vmap geometry, Pallas kernels for the feature
-frontend and descriptor matching, batched Schur-complement bundle
-adjustment, and keyframe/landmark sharding across device meshes.
+(DavidHan008/SLAM-1, see SURVEY.md): fixed-capacity masked tensors,
+jit/vmap geometry, a Pallas kernel for descriptor matching, batched
+Schur-complement bundle adjustment, and keyframe/landmark sharding
+across device meshes.
 
 Layers (bottom-up), mirroring SURVEY.md §1's logical layer map:
   ops/      — SE(3)/camera math, FAST/BRIEF kernels, Hamming matcher,

@@ -8,7 +8,7 @@ never used, bag_of_words.py:2). Subcommands:
   ba     — offline pose-graph/bundle-adjustment pass over a snapshot
            (the counterpart of `python BundleAdjustment.py`)
   eval   — ATE/RPE of an estimated trajectory vs ground truth
-  bench  — single-chip throughput microbench (same core as bench.py)
+  bench  — single-card throughput bench (same core as bench.py)
 """
 
 from __future__ import annotations
@@ -22,13 +22,6 @@ import numpy as np
 
 def _cmd_run(args):
     import jax
-    if getattr(args, "multihost", False):
-        from slam1_tpu.parallel.mesh import init_multihost
-        init_multihost(args.coordinator, args.num_processes,
-                       args.process_id)
-        print(f"multihost: process {jax.process_index()}/"
-              f"{jax.process_count()}, {len(jax.devices())} devices",
-              file=sys.stderr)
     from slam1_tpu.config import SlamConfig, tiny_config
     from slam1_tpu.models import pipeline, vo
     from slam1_tpu.utils import evalmetrics
@@ -258,7 +251,7 @@ def _cmd_bench(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="slam",
-                                description="TPU-native stereo SLAM")
+                                description="stereo visual SLAM")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="run VO / full SLAM")
@@ -280,14 +273,6 @@ def main(argv=None):
     pr.add_argument("--resume", help="resume from a checkpoint .npz")
     pr.add_argument("--checkpoint-every", type=int, default=0)
     pr.add_argument("--checkpoint-dir", default="checkpoints")
-    pr.add_argument("--multihost", action="store_true",
-                    help="bring up jax.distributed (multi-host mesh over "
-                         "ICI/DCN) before running")
-    pr.add_argument("--coordinator", default=None,
-                    help="coordinator address host:port (multi-host; "
-                         "auto-detected on TPU pods)")
-    pr.add_argument("--num-processes", type=int, default=None)
-    pr.add_argument("--process-id", type=int, default=None)
     pr.set_defaults(fn=_cmd_run)
 
     pe = sub.add_parser("eval", help="ATE/RPE of est vs gt")
@@ -315,7 +300,7 @@ def main(argv=None):
                          "auto from device count)")
     pb.set_defaults(fn=_cmd_ba)
 
-    pn = sub.add_parser("bench", help="single-chip throughput bench")
+    pn = sub.add_parser("bench", help="single-card throughput bench")
     pn.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)

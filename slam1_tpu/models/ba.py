@@ -4,7 +4,7 @@ Does for real what the reference's dormant BAL-style BA sketches in a
 string literal (/root/reference/BundleAdjustment.py:230-466: 9-param
 cameras + points, scipy TRF with a hand-built Jacobian sparsity mask)
 and what its active pose-only backend approximates (:107-183). No scipy
-on device — the TPU formulation (SURVEY.md §7 step 6):
+on device — the batched formulation (SURVEY.md §7 step 6):
 
   - reprojection residuals + per-observation camera/landmark Jacobians
     in one vmap (analytic structure via jacfwd at zero perturbation);
@@ -154,40 +154,15 @@ def _linearize(problem: BAProblem, cam: StereoCamera, w_irls):
     return r, Jc, Jl, w_irls
 
 
-def _segends(idx_sorted, n):
-    """Per-segment end positions for segment_sum_sorted (hoist out of
-    CG: depends only on the index vector)."""
-    return jnp.searchsorted(idx_sorted, jnp.arange(1, n + 1)) - 1
-
-
-def segment_sum_sorted(vals, ends):
-    """Segment-sum of (O, ...) `vals` whose segment ids are SORTED,
-    via cumsum + boundary gathers — NO scatter-add.
-
-    TPU scatter-adds serialize to ~1 element/cycle and dominate the BA
-    CG matvec (measured 60x from its bandwidth speed-of-light); the
-    cumsum is a log-depth memory-bound pass and the two boundary
-    gathers touch n rows, not O. f32 cumsum costs ~1e-7 * |prefix|
-    absolute error on the differences — noise well below the CG
-    tolerance of the damped GN step (the outer LM re-evaluates costs
-    exactly)."""
-    csum = jnp.cumsum(vals, axis=0)
-    take = jnp.clip(ends, 0, vals.shape[0] - 1)
-    shape = (ends.shape[0],) + (1,) * (vals.ndim - 1)
-    ok = (ends >= 0).reshape(shape)
-    c_end = jnp.where(ok, csum[take], 0.0)
-    c_prev = jnp.concatenate([jnp.zeros_like(c_end[:1]), c_end[:-1]])
-    return c_end - c_prev
-
-
 def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
     """One damped GN step via landmark elimination + PCG.
 
-    The observation axis of the global problem is SORTED by camera
-    (build_global_problem), so every camera-side segment reduction in
-    the CG body uses segment_sum_sorted; the landmark side pre-sorts a
-    permutation once per solve and pays one extra (O,3) gather per
-    matvec instead of a scatter-add.
+    Per-camera and per-landmark sums over observations are segment sums
+    (scatter-adds). A cumsum with differences at the segment ends, the
+    scatter-free form this solver used before, loses the f32 precision
+    of every segment to the running prefix, which grows with the
+    observation count: on a seeded 200-keyframe problem LM stalled 9-12%
+    above the cost the distributed solver (exact sums) reached.
 
     Returns (delta_c (C,6), delta_l (L,3)).
     """
@@ -195,22 +170,12 @@ def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
     L = problem.points.shape[0]
     ci, li = problem.cam_idx, problem.lm_idx
     w2 = w[:, None, None]
-    # Hoisted index structures (constant across CG iterations). argsort
-    # runs once per solve; it is the identity permutation for the
-    # camera-sorted layout build_global_problem emits, and makes the
-    # cumsum reduction correct for any caller's ordering.
-    c_perm = jnp.argsort(ci)
-    ci_s = ci[c_perm]
-    c_ends = _segends(ci_s, C)
-    l_perm = jnp.argsort(li)
-    li_s = li[l_perm]
-    l_ends = _segends(li_s, L)
 
     def seg_cam(vals):
-        return segment_sum_sorted(vals[c_perm], c_ends)
+        return jax.ops.segment_sum(vals, ci, num_segments=C)
 
     def seg_lm(vals):
-        return segment_sum_sorted(vals[l_perm], l_ends)
+        return jax.ops.segment_sum(vals, li, num_segments=L)
 
     Hcc = seg_cam(jnp.einsum("oai,oaj->oij", Jc, Jc) * w2)
     Hll = seg_lm(jnp.einsum("oai,oaj->oij", Jl, Jl) * w2)
@@ -247,9 +212,8 @@ def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
     eye3 = jnp.eye(3, dtype=r.dtype)
     Hcc_d = Hcc + lam * _diag_only(Hcc) + 1e-6 * eye6
     Hll_d = Hll + lam * _diag_only(Hll) + 1e-6 * eye3
-    # Closed-form batched 3x3 inverse (adjugate/det): pure elementwise
-    # VPU work. jnp.linalg.inv lowers to a scalarized LU loop on TPU —
-    # hundreds of ms at L ~ 10^5.
+    # Closed-form batched 3x3 inverse (adjugate/det): one elementwise
+    # pass over L ~ 10^5 blocks instead of a batched LU.
     Hll_inv = _inv3x3(Hll_d)                                      # (L,3,3)
 
     btil = bc - seg_cam(
@@ -277,8 +241,8 @@ def _schur_solve(problem, r, Jc, Jl, w, lam, cg_iters: int):
                                                    x[problem.pe_i]))))
         return out.at[0].set(x[0])                                # gauge
 
-    # closed-form blockwise SPD inverse (jnp.linalg.inv = scalarized
-    # LU on TPU; at C ~ 1024 cameras the batched LU dwarfs the CG body)
+    # closed-form blockwise SPD inverse instead of a batched LU over
+    # C ~ 1024 cameras
     Minv = inv_spd6(Hcc_d)
 
     def precond(v):

@@ -5,7 +5,7 @@ The reference keeps a classic BAL formulation dormant inside a string
 literal (/root/reference/BundleAdjustment.py:230-466): per-camera
 [rvec(3), tvec(3), f, k1, k2] plus 3D points, scipy least_squares over
 reprojection residuals with a hand-built Jacobian sparsity mask. Here
-it runs for real, TPU-style: the same landmark-elimination Schur LM as
+it runs for real, batched on device: the same landmark-elimination Schur LM as
 models/ba.py but with 9-dof camera blocks, so FOCAL LENGTH and RADIAL
 DISTORTION are refined jointly with geometry.
 

@@ -6,7 +6,7 @@ track_keypoints_left_to_right_new -> triangulate_points_local
 
 The reference filters L-R matches with cv2.findFundamentalMat(LMedS);
 on a rectified rig the fundamental matrix is known a-priori ([e]_x), so
-the geometrically identical but TPU-trivial filter is the epipolar gate
+the geometrically identical but trivially parallel filter is the epipolar gate
 |y_l - y_r| < eps plus a disparity window — pure elementwise masking.
 (The general 8-point RANSAC F-estimator for non-rectified input lives in
 ops/epipolar.py and is used by the calibration-free path.)

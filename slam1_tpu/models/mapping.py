@@ -3,7 +3,7 @@ observation records, and keyframe feature snapshots.
 
 Replaces the reference's unbounded Python map with per-frame KDTree
 rebuild and O(n^2) vstack growth (/root/reference/keypoint.py:102-122,
-main.py:124-127). TPU design: a pre-allocated landmark table plus an
+main.py:124-127). Design: a pre-allocated landmark table plus an
 open-addressed voxel hash (linear probing, `probes` slots); insertion
 and merge are pure gather/scatter with masks — no dynamic shapes, no
 host round-trips. A KD-tree is shape-dynamic and branchy; quantized
@@ -111,8 +111,8 @@ def insert(state: MapState, xyz_world, desc, mask, frame_idx, uv,
     hi = jnp.floor((xyz_world + r) / vs).astype(jnp.int32)
 
     # ONE batched probe over all 8 corner voxels x `probes` chain slots
-    # (a serialized 32-iteration probe loop is 32 HBM passes and wholly
-    # latency-bound on TPU; a (N, 8*probes) gather is one).
+    # (a serialized 32-iteration probe loop is 32 dependent passes over
+    # device memory; a (N, 8*probes) gather is one).
     cx = jnp.stack([lo[:, 0], hi[:, 0]], -1)                 # (N,2)
     cy = jnp.stack([lo[:, 1], hi[:, 1]], -1)
     cz = jnp.stack([lo[:, 2], hi[:, 2]], -1)

@@ -8,7 +8,7 @@ The real version of what the reference approximates twice:
     (loop_closure.py:39-52) — the degenerate special case of one GN
     step on a chain graph.
 
-TPU design: all edges evaluated in one vmap (residual = SE(3) log of
+Design: all edges evaluated in one vmap (residual = SE(3) log of
 the cycle error, Jacobians by jacfwd at the identity perturbation), the
 Gauss-Newton normal equations solved matrix-free with CG where each
 matvec is gather -> per-edge 6x6 block products -> segment-sum. Static
@@ -53,7 +53,7 @@ def _edge_residual(delta_i, delta_j, T_i, T_j, Z):
 
 def _inv6(M):
     """Batched closed-form general 6x6 inverse via 3x3 block Schur
-    (all adjugate 3x3 inverses — no scalarized LU on TPU). Assumes the
+    (all adjugate 3x3 inverses, no batched LU). Assumes the
     upper-left 3x3 block is invertible, which holds for the chain-edge
     Jacobians used here (J = I + O(residual))."""
     from slam1_tpu.ops.lsq import inv3x3

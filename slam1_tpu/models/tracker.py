@@ -4,7 +4,7 @@ Covers the reference chain find_2D_and_3D_correspondenses ->
 calculate_transformation_matrix (/root/reference/Point3D.py:33-53,
 transformation.py:5-19, main.py:88-95). Differences by design:
 
-  - The descriptor match is the MXU Hamming matcher, not FLANN.
+  - The descriptor match is the brute-force Hamming matcher, not FLANN.
   - The range gate (ref max_Distance, main.py:90) is applied as a mask.
   - PnP failure does not silently reuse the previous transform inside
     the solver (ref quirk at main.py:94-98); instead `ok=False` is

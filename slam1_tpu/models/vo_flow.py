@@ -1,7 +1,7 @@
 """Alternative stereo VO frontend: FAST corners + LK optical flow + dense
 disparity (SURVEY.md C18).
 
-The TPU-native counterpart of the reference's second, self-contained VO
+The counterpart of the reference's second, self-contained VO
 (/root/reference/visual_odometry.py:12-192): tiled FAST keypoints (:83-96),
 pyramidal LK temporal tracking (:98-111), SGBM disparity lookups to
 synthesize right-image coordinates (:113-126), triangulation of both time

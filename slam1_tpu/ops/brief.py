@@ -1,6 +1,6 @@
 """Orientation (intensity centroid) + steered rBRIEF 256-bit descriptors.
 
-TPU-native replacement for cv2.ORB's description stage (reference
+Replacement for cv2.ORB's description stage (reference
 /root/reference/orb.py:28-38 relies on OpenCV's compiled rBRIEF). The
 sampling pattern is NOT OpenCV's learned table (no code copied); it is a
 fixed seeded Gaussian pattern clipped to a disk, which gives descriptors
@@ -38,10 +38,8 @@ def gaussian_blur(img, sigma: float = 1.4, ksize: int = 7):
     """Separable Gaussian blur of an (H,W) image (descriptor smoothing,
     the counterpart of OpenCV ORB's integral-image box blur).
 
-    Implemented as 2*ksize statically-shifted weighted adds — pure VPU
-    elementwise work that XLA fuses into two passes over the image (the
-    earlier vmapped jnp.convolve formulation lowered to a slow
-    per-column loop on TPU).
+    Implemented as 2*ksize statically-shifted weighted adds — elementwise
+    work that XLA fuses into two passes over the image.
     """
     r = ksize // 2
     x = np.arange(-r, r + 1, dtype=np.float64)
@@ -105,12 +103,10 @@ def _describe(patches, angles, pattern, n_pairs: int):
     """Steered rBRIEF bits from pre-extracted patches.
 
     The per-sample lookup patches[n, iy, ix] is expressed as two one-hot
-    contractions instead of a scalar gather: TPU gathers serialize to
-    ~1 element/cycle (2000 kp x 512 samples took ~14 ms) while the
-    equivalent factored matmuls are memory-bound at full HBM bandwidth
-    (<0.5 ms). Bit-identical up to matmul rounding (one nonzero term
-    per row, exact in fp32; bf16 MXU passes introduce <=2^-9 noise on
-    the sampled values, irrelevant to the a<b comparisons).
+    contractions instead of a scalar gather. Bit-identical up to matmul
+    rounding (one nonzero term per row: exact in fp32; the DEFAULT
+    precision used here is TF32 on the GPU, whose rounding of the
+    sampled values flips a bit only where two samples are within it).
     """
     n, p, _ = patches.shape
     c = p // 2
@@ -156,7 +152,8 @@ def describe(img_blurred, xy, angles, pattern):
 
 
 def unpack_bits_pm1(desc_packed):
-    """(N, B/8) uint8 -> (N, B) int8 in {-1,+1} for MXU matching."""
+    """(N, B/8) uint8 -> (N, B) int8 in {-1,+1} for matching as a
+    matrix product."""
     shifts = jnp.arange(8, dtype=jnp.uint8)
     bits = (desc_packed[..., :, None] >> shifts[None, None, :]) & 1
     n = desc_packed.shape[0]

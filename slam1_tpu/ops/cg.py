@@ -3,7 +3,7 @@
 The backend solvers (pose graph, reduced camera system of the Schur BA)
 never materialize their Hessians: CG consumes a matvec closure built
 from per-edge/per-observation gather + segment-sum, which is the
-TPU-friendly sparse structure (static shapes, no CSR). Fixed iteration
+jit-friendly sparse structure (static shapes, no CSR). Fixed iteration
 count (lax.scan) — no data-dependent convergence branch under jit.
 """
 

@@ -20,7 +20,6 @@ import numpy as np
 
 from slam1_tpu.config import DetectorConfig
 from slam1_tpu.ops import brief, fast
-from slam1_tpu.ops.dispatch import use_pallas as _use_pallas
 from slam1_tpu.types import Features
 
 
@@ -30,12 +29,10 @@ def _extract_patches_tiled(blurred, ty, tx, gr: int, gc: int, th: int,
 
     ty/tx: (T, k) int32 tile-local keypoint coords, T = gr*gc.
 
-    Per-keypoint patch gathers serialize on TPU (~1 elem/cycle; a
-    2000x33x33 gather cost ~23 ms). Keypoints come from a per-tile
-    top-k, so the selection is re-expressed as two one-hot contractions
-    against each keypoint's own (th+patch-1, tw+patch-1) halo tile —
-    MXU/memory-bound work at <0.2 ms for 2048 keypoints. Exact up to
-    matmul rounding (one nonzero term per one-hot row).
+    Keypoints come from a per-tile top-k, so instead of a per-keypoint
+    patch gather the selection is expressed as two one-hot contractions
+    against each keypoint's own (th+patch-1, tw+patch-1) halo tile.
+    Exact up to matmul rounding (one nonzero term per one-hot row).
     """
     m = patch // 2
     h, w = blurred.shape
@@ -53,10 +50,10 @@ def _extract_patches_tiled(blurred, ty, tx, gr: int, gc: int, th: int,
     dt = blurred.dtype
     r1 = (rows[..., None] == jnp.arange(hh)).astype(dt)    # (T,k,P,HH)
     c1 = (cols[..., None] == jnp.arange(hw_)).astype(dt)   # (T,k,P,HW)
-    # DEFAULT (bf16-pass) precision, overriding the global "highest"
-    # pin (runtime.py): selection matmuls have one nonzero term per row,
-    # so the only error is the bf16 rounding of the pixel value (2^-9),
-    # irrelevant to corner patches.
+    # DEFAULT precision (TF32 on the GPU), overriding the global
+    # "highest" pin (runtime.py): selection matmuls have one nonzero
+    # term per row, so the only error is the rounding of the pixel
+    # value (2^-11 in TF32), irrelevant to corner patches.
     prec = jax.lax.Precision.DEFAULT
     u = jnp.einsum("tkph,thw->tkpw", r1, timg, precision=prec)
     patches = jnp.einsum("tkpw,tkqw->tkpq", u, c1, precision=prec)
@@ -77,12 +74,7 @@ def detect(img, cfg: DetectorConfig, valid_h=None, valid_w=None) -> Features:
     if valid_w is None:
         valid_w = w
 
-    if _use_pallas():
-        from slam1_tpu.ops import pallas_kernels
-        raw = pallas_kernels.fast_score(img, cfg.fast_threshold,
-                                        arc=cfg.fast_arc)
-    else:
-        raw = fast.fast_score(img, cfg.fast_threshold, arc=cfg.fast_arc)
+    raw = fast.fast_score(img, cfg.fast_threshold, arc=cfg.fast_arc)
     score = fast.nms(raw, cfg.nms_radius)
 
     ys = jnp.arange(h)[:, None]
@@ -214,9 +206,9 @@ def detect_pyramid(img, cfg: DetectorConfig, valid_h=None,
     if len(feats) == 1:
         return feats[0]
     out = jax.tree.map(lambda *a: jnp.concatenate(a, axis=0), *feats)
-    # Pad capacity to a multiple of 128 with masked slots so the fused
-    # Pallas Hamming matcher (which tiles 128x128 onto the MXU) engages
-    # for ANY level-grid combination — no grid numerology required.
+    # Pad capacity to a multiple of 128 with masked slots: 128 is the
+    # column tile of the fused Hamming kernel (ops/pallas_kernels.py),
+    # which otherwise pads B itself.
     n = out.mask.shape[0]
     pad = (-n) % 128
     if pad:

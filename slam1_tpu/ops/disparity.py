@@ -1,7 +1,7 @@
 """Rectified-stereo dense disparity: block matching + semi-global
 aggregation.
 
-TPU-native replacement for cv2.StereoSGBM (used by the reference's
+Replacement for cv2.StereoSGBM (used by the reference's
 alternative frontend, /root/reference/visual_odometry.py:19-23 with
 block=11 and 32 disparities, consumed at :113-126 as a per-keypoint
 lookup to synthesize right-image coordinates). Design:

@@ -1,21 +1,24 @@
-"""Backend dispatch: pick Pallas TPU kernels or jnp fallbacks.
+"""Backend dispatch: the Pallas GPU kernels on a GPU, plain `jnp` on the CPU.
 
-Decided once per process at trace time (the backend cannot change under
-a live jit cache). Tests force either path explicitly; production code
-calls the `*_auto` wrappers.
+Decided at trace time from the default backend (the backend cannot
+change under a live jit cache). A platform with neither path is an
+error, never a silent fallback.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 
 
-@functools.lru_cache(maxsize=1)
-def use_pallas() -> bool:
-    """True when the default backend is a real TPU."""
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
+def kernel_for(platform: str) -> bool:
+    """True for the kernel path on `platform`, False for plain `jnp`."""
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
         return False
+    raise RuntimeError(f"no kernel or plain path for platform {platform!r}")
+
+
+def use_kernels() -> bool:
+    """The choice for the default backend of this process."""
+    return kernel_for(jax.default_backend())

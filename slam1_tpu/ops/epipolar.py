@@ -5,7 +5,7 @@ General-geometry counterpart of cv2.findFundamentalMat(FM_LMEDS)
 the trivial row/disparity gate instead (models/frontend.py); this module
 serves non-rectified pairs and temporal-pair outlier rejection.
 
-TPU shape: K hypotheses solved in one vmap (normalized 8-point via SVD
+Shape: K hypotheses solved in one vmap (normalized 8-point via SVD
 of the 8x9 design matrix + rank-2 projection), scored by Sampson
 distance over all correspondences, best-by-inlier-count — the same
 fixed-size RANSAC pattern as ops/pnp.py.
@@ -110,7 +110,7 @@ def ransac_fundamental(key, uv1, uv2, mask, iters: int = 128,
 # The reference carries this path unused (get_pose/decomp_essential_mat,
 # /root/reference/visual_odometry_solution_methods.py:50-68:
 # cv2.findEssentialMat -> decomposeEssentialMat -> 4-candidate
-# cheirality vote). TPU shape: E from the RANSAC F (E = K^T F K),
+# cheirality vote). Shape: E from the RANSAC F (E = K^T F K),
 # closed-form SVD decomposition, and the cheirality vote as ONE batched
 # triangulation over all 4 (R, t) candidates x all correspondences —
 # no per-candidate Python loop.

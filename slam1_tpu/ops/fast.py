@@ -1,14 +1,13 @@
 """FAST-9 corner scoring, fully vectorized over the image.
 
-TPU-native replacement for cv2.ORB's FAST stage and cv2.FastFeature
-(reference /root/reference/orb.py:28-38, visual_odometry.py:86-96).
-Instead of a per-pixel branchy scan, the 16 Bresenham-circle taps are
-materialized as 16 shifted views and the "contiguous arc >= 9" predicate
-is evaluated with log-step circular run-length doubling — pure
-elementwise VPU work that XLA fuses into a handful of passes.
-
-A Pallas kernel variant lives in ops/pallas_kernels.py; this module is
-the reference implementation and CPU/test path.
+Replaces cv2.ORB's FAST stage and cv2.FastFeature (reference
+orb.py:28-38, visual_odometry.py:86-96). Instead of a
+per-pixel branchy scan, the 16 Bresenham-circle taps are visited as 16
+shifted slices of the edge-padded image, in circular order and then 8
+more, counting the current run of brighter (darker) taps at every
+pixel: a pixel is a corner when a run reaches `arc`. Everything is
+elementwise on slices of one input, so XLA compiles the whole score
+into one fusion that reads the image once and writes the score once.
 """
 
 from __future__ import annotations
@@ -26,39 +25,6 @@ CIRCLE = (
 BORDER = 3
 
 
-def _circle_stack(img):
-    """(H,W) -> (16,H,W) of circle-tap values (roll wraps; border masked
-    downstream)."""
-    return jnp.stack(
-        [jnp.roll(img, (-dy, -dx), axis=(0, 1)) for dy, dx in CIRCLE], axis=0)
-
-
-def _runs_at_least(x, n):
-    """x: (16,...) bool ring along axis 0. Returns mask of positions that
-    start a circular run of >= n consecutive True, via doubling."""
-    run = x
-    length = 1
-    bit = 1
-    target = n
-    # Compose shifts to cover exactly n using binary decomposition.
-    # run_k[i] == all(x[i..i+k-1]); combine: run_{a+b}[i] = run_a[i] & run_b[i+a].
-    result = None
-    acc = None
-    acc_len = 0
-    while target > 0:
-        if target & 1:
-            if acc is None:
-                acc, acc_len = run, length
-            else:
-                acc = acc & jnp.roll(run, -acc_len, axis=0)
-                acc_len += length
-        target >>= 1
-        if target:
-            run = run & jnp.roll(run, -length, axis=0)
-            length *= 2
-    return acc
-
-
 @functools.partial(jax.jit, static_argnames=("arc",))
 def fast_score(img, threshold, arc: int = 9):
     """FAST corner score map.
@@ -72,18 +38,24 @@ def fast_score(img, threshold, arc: int = 9):
       above-threshold absolute differences over the dominant polarity
       (OpenCV's FAST score variant, good for NMS ranking).
     """
-    taps = _circle_stack(img)              # (16,H,W)
-    diff = taps - img[None]
-    bright = diff > threshold
-    dark = diff < -threshold
-    is_corner = (jnp.any(_runs_at_least(bright, arc), axis=0)
-                 | jnp.any(_runs_at_least(dark, arc), axis=0))
-    score_b = jnp.sum(jnp.maximum(diff - threshold, 0.0), axis=0)
-    score_d = jnp.sum(jnp.maximum(-diff - threshold, 0.0), axis=0)
-    score = jnp.maximum(score_b, score_d)
-    score = jnp.where(is_corner, score, 0.0)
-    # Kill the wrap-around border introduced by roll.
     h, w = img.shape
+    pad = jnp.pad(img, BORDER)
+    run_b = run_d = jnp.zeros((h, w), jnp.int32)
+    corner = jnp.zeros((h, w), bool)
+    score_b = score_d = jnp.zeros((h, w), img.dtype)
+    # 16 + arc - 1 taps: a run that wraps past tap 15 is still counted.
+    for t in range(len(CIRCLE) + arc - 1):
+        dy, dx = CIRCLE[t % len(CIRCLE)]
+        diff = pad[BORDER + dy:BORDER + dy + h,
+                   BORDER + dx:BORDER + dx + w] - img
+        run_b = jnp.where(diff > threshold, run_b + 1, 0)
+        run_d = jnp.where(diff < -threshold, run_d + 1, 0)
+        corner = corner | (run_b >= arc) | (run_d >= arc)
+        if t < len(CIRCLE):
+            score_b = score_b + jnp.maximum(diff - threshold, 0.0)
+            score_d = score_d + jnp.maximum(-diff - threshold, 0.0)
+    score = jnp.where(corner, jnp.maximum(score_b, score_d), 0.0)
+    # No full circle within BORDER of the edge.
     ys = jnp.arange(h)[:, None]
     xs = jnp.arange(w)[None, :]
     inside = ((ys >= BORDER) & (ys < h - BORDER)

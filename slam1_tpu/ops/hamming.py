@@ -1,19 +1,18 @@
-"""Brute-force Hamming descriptor matching as an MXU contraction.
+"""Brute-force Hamming descriptor matching as a ±1 contraction.
 
 Replaces FLANN-LSH knn matching (/root/reference/keypoint.py:44,
-tracking.py:12-34, Point3D.py:33-53). The TPU formulation: descriptors
-unpacked to {-1,+1}^256 int8 give
+tracking.py:12-34, Point3D.py:33-53). Descriptors unpacked to
+{-1,+1}^256 int8 give
 
     dot(a, b) = B - 2 * hamming(a, b)
 
-so the full N x M distance matrix is ONE int8 matmul on the MXU followed
-by an affine rescale — brute force beats approximate LSH here because
-the systolic array makes the exhaustive product essentially free at
-SLAM problem sizes (2k x 2k x 256 int8 MACs ≈ 1 GMAC).
+so the full N x M distance matrix is one int8 matrix product followed
+by an affine rescale: at SLAM problem sizes (2k x 2k x 256) the
+exhaustive product is cheaper than approximate hashing.
 
-A fused Pallas variant (matmul + top-2 in VMEM, never materializing the
-distance matrix in HBM) lives in ops/pallas_kernels.py and is selected
-automatically on TPU backends.
+On a GPU the fused kernel in ops/pallas_kernels.py computes the top-2
+without writing the distance matrix (ops/dispatch.py picks it); the
+plain `jnp` path below is the reference and the CPU path.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from slam1_tpu.ops.brief import unpack_bits_pm1
-from slam1_tpu.ops.dispatch import use_pallas as _use_pallas
+from slam1_tpu.ops.dispatch import use_kernels
 from slam1_tpu.types import Matches
 
 _BIG = jnp.int32(1 << 20)
@@ -47,6 +46,60 @@ def distance_matrix(desc_a, desc_b, mask_a=None, mask_b=None):
     return d
 
 
+def top2(desc_a, desc_b, mask_a=None, mask_b=None, *, uv_a=None,
+         uv_b=None, dy_tol=None, dx_lo=0.0, dx_hi=0.0):
+    """(d1, d2, best, col_best): each A row's best and second-best
+    distance and argbest, and each B column's argmin row, over the
+    candidates that pass the masks and the optional band gate
+    (|y_b - y_a| <= dy_tol and dx_lo <= x_a - x_b <= dx_hi)."""
+    if use_kernels():
+        from slam1_tpu.ops.pallas_kernels import hamming_top2
+        n, m = desc_a.shape[0], desc_b.shape[0]
+        ma = jnp.ones((n,), bool) if mask_a is None else mask_a
+        mb = jnp.ones((m,), bool) if mask_b is None else mask_b
+        gate = {} if dy_tol is None else dict(
+            uv_a=uv_a, uv_b=uv_b, dy_tol=float(dy_tol),
+            dx_lo=float(dx_lo), dx_hi=float(dx_hi))
+        return hamming_top2(unpack_bits_pm1(desc_a), unpack_bits_pm1(desc_b),
+                            ma, mb, **gate)
+    return top2_plain(gated_distances(desc_a, desc_b, mask_a, mask_b,
+                                      uv_a=uv_a, uv_b=uv_b, dy_tol=dy_tol,
+                                      dx_lo=dx_lo, dx_hi=dx_hi))
+
+
+def gated_distances(desc_a, desc_b, mask_a=None, mask_b=None, *,
+                    uv_a=None, uv_b=None, dy_tol=None, dx_lo=0.0,
+                    dx_hi=0.0):
+    """distance_matrix with the band gate of `top2` applied."""
+    d = distance_matrix(desc_a, desc_b, mask_a, mask_b)
+    if dy_tol is None:
+        return d
+    dy = jnp.abs(uv_a[:, 1:2] - uv_b[None, :, 1])
+    dx = uv_a[:, 0:1] - uv_b[None, :, 0]
+    return jnp.where((dy > dy_tol) | (dx < dx_lo) | (dx > dx_hi), _BIG, d)
+
+
+def top2_plain(d):
+    """`top2` of a materialized (N,M) distance matrix: the reference."""
+    # Two smallest distances per row == two largest of -d.
+    neg_top2, idx_top2 = jax.lax.top_k(-d, 2)
+    return (-neg_top2[:, 0], -neg_top2[:, 1], idx_top2[:, 0],
+            jnp.argmin(d, axis=0))
+
+
+def accept(d1, d2, best, col_best, mask_a, *, ratio, max_distance,
+           cross_check) -> Matches:
+    """Absolute distance gate, Lowe ratio test and optional mutual
+    consistency on a top-2 result."""
+    ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
+                                 < ratio * d2.astype(jnp.float32))
+    if cross_check:
+        ok = ok & (col_best[best] == jnp.arange(d1.shape[0]))
+    if mask_a is not None:
+        ok = ok & mask_a
+    return Matches(idx=best, distance=d1, mask=ok)
+
+
 def match(desc_a, desc_b, mask_a=None, mask_b=None, *, ratio=0.8,
           max_distance=64, cross_check=True) -> Matches:
     """Best-match with Lowe ratio test and optional mutual consistency.
@@ -54,27 +107,9 @@ def match(desc_a, desc_b, mask_a=None, mask_b=None, *, ratio=0.8,
     Mirrors the reference's knn(k=2) + 0.7-ratio filter
     (keypoint.py:44-51) plus an absolute distance gate.
     """
-    n, m = desc_a.shape[0], desc_b.shape[0]
-    if _use_pallas() and n % 128 == 0 and m % 128 == 0:
-        from slam1_tpu.ops.pallas_kernels import hamming_top2
-        ma = (jnp.ones((n,), bool) if mask_a is None else mask_a)
-        mb = (jnp.ones((m,), bool) if mask_b is None else mask_b)
-        d1, d2, best, col_best = hamming_top2(
-            unpack_bits_pm1(desc_a), unpack_bits_pm1(desc_b), ma, mb)
-    else:
-        d = distance_matrix(desc_a, desc_b, mask_a, mask_b)
-        # Two smallest distances per row == two largest of -d.
-        neg_top2, idx_top2 = jax.lax.top_k(-d, 2)
-        d1, d2 = -neg_top2[:, 0], -neg_top2[:, 1]
-        best = idx_top2[:, 0]
-        col_best = jnp.argmin(d, axis=0)           # (M,)
-    ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
-                                 < ratio * d2.astype(jnp.float32))
-    if cross_check:
-        ok = ok & (col_best[best] == jnp.arange(n))
-    if mask_a is not None:
-        ok = ok & mask_a
-    return Matches(idx=best, distance=d1, mask=ok)
+    return accept(*top2(desc_a, desc_b, mask_a, mask_b), mask_a,
+                  ratio=ratio, max_distance=max_distance,
+                  cross_check=cross_check)
 
 
 def match_epipolar(desc_a, desc_b, xy_a, xy_b, mask_a, mask_b, *,
@@ -92,43 +127,15 @@ def match_epipolar(desc_a, desc_b, xy_a, xy_b, mask_a, mask_b, *,
     in the image and the ratio test throws away the majority of true
     stereo pairs (measured: 133 within-distance-gate matches reduced to
     56 by the global ratio test on a 192-feature frame). This is the
-    brute-force MXU analogue of classical scanline stereo matching; the
+    brute-force analogue of classical scanline stereo matching; the
     reference's FLANN+LMedS pipeline (keypoint.py:35-66) filters AFTER
     matching and pays the same recall cost.
     """
-    n, m_ = desc_a.shape[0], desc_b.shape[0]
-    if _use_pallas() and n % 128 == 0 and m_ % 128 == 0:
-        from slam1_tpu.ops.pallas_kernels import hamming_top2
-        ma = (jnp.ones((n,), bool) if mask_a is None else mask_a)
-        mb = (jnp.ones((m_,), bool) if mask_b is None else mask_b)
-        d1, d2, best, col_best = hamming_top2(
-            unpack_bits_pm1(desc_a), unpack_bits_pm1(desc_b), ma, mb,
-            uv_a=xy_a, uv_b=xy_b, dy_tol=float(dy_tol),
-            dx_lo=float(min_disparity), dx_hi=float(max_disparity))
-        ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
-                                     < ratio * d2.astype(jnp.float32))
-        if cross_check:
-            ok = ok & (col_best[best] == jnp.arange(n))
-        if mask_a is not None:
-            ok = ok & mask_a
-        return Matches(idx=best, distance=d1, mask=ok)
-    d = distance_matrix(desc_a, desc_b, mask_a, mask_b)
-    dy = jnp.abs(xy_a[:, 1:2] - xy_b[None, :, 1])
-    disp = xy_a[:, 0:1] - xy_b[None, :, 0]
-    off_band = ((dy > dy_tol) | (disp < min_disparity)
-                | (disp > max_disparity))
-    d = jnp.where(off_band, _BIG, d)
-    neg_top2, idx_top2 = jax.lax.top_k(-d, 2)
-    d1, d2 = -neg_top2[:, 0], -neg_top2[:, 1]
-    best = idx_top2[:, 0]
-    ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
-                                 < ratio * d2.astype(jnp.float32))
-    if cross_check:
-        col_best = jnp.argmin(d, axis=0)
-        ok = ok & (col_best[best] == jnp.arange(n))
-    if mask_a is not None:
-        ok = ok & mask_a
-    return Matches(idx=best, distance=d1, mask=ok)
+    return accept(*top2(desc_a, desc_b, mask_a, mask_b, uv_a=xy_a,
+                        uv_b=xy_b, dy_tol=dy_tol, dx_lo=min_disparity,
+                        dx_hi=max_disparity), mask_a,
+                  ratio=ratio, max_distance=max_distance,
+                  cross_check=cross_check)
 
 
 def match_windowed(desc_a, desc_b, uv_pred_a, xy_b, mask_a, mask_b, *,
@@ -139,40 +146,13 @@ def match_windowed(desc_a, desc_b, uv_pred_a, xy_b, mask_a, mask_b, *,
     distance matrix before best/second-best selection — the temporal
     analogue of match_epipolar's band (the ratio test then compares
     against candidates the motion model considers reachable, not the
-    whole frame's lookalikes). The gate is an axis-aligned square (the
-    fused Pallas kernel's band form); the jnp fallback matches it."""
-    n = desc_a.shape[0]
-    m_ = desc_b.shape[0]
-    if _use_pallas() and n % 128 == 0 and m_ % 128 == 0:
-        from slam1_tpu.ops.pallas_kernels import hamming_top2
-        ma = (jnp.ones((n,), bool) if mask_a is None else mask_a)
-        mb = (jnp.ones((m_,), bool) if mask_b is None else mask_b)
-        d1, dd2, best, col_best = hamming_top2(
-            unpack_bits_pm1(desc_a), unpack_bits_pm1(desc_b), ma, mb,
-            uv_a=uv_pred_a, uv_b=xy_b, dy_tol=float(radius),
-            dx_lo=-float(radius), dx_hi=float(radius))
-        ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
-                                     < ratio * dd2.astype(jnp.float32))
-        if cross_check:
-            ok = ok & (col_best[best] == jnp.arange(n))
-        if mask_a is not None:
-            ok = ok & mask_a
-        return Matches(idx=best, distance=d1, mask=ok)
-    d = distance_matrix(desc_a, desc_b, mask_a, mask_b)
-    dy = jnp.abs(uv_pred_a[:, 1:2] - xy_b[None, :, 1])
-    dx = uv_pred_a[:, 0:1] - xy_b[None, :, 0]
-    d = jnp.where((dy > radius) | (jnp.abs(dx) > radius), _BIG, d)
-    neg_top2, idx_top2 = jax.lax.top_k(-d, 2)
-    d1, dd2 = -neg_top2[:, 0], -neg_top2[:, 1]
-    best = idx_top2[:, 0]
-    ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
-                                 < ratio * dd2.astype(jnp.float32))
-    if cross_check:
-        col_best = jnp.argmin(d, axis=0)
-        ok = ok & (col_best[best] == jnp.arange(n))
-    if mask_a is not None:
-        ok = ok & mask_a
-    return Matches(idx=best, distance=d1, mask=ok)
+    whole frame's lookalikes). The gate is an axis-aligned square, the
+    band form with dx in [-radius, radius]."""
+    return accept(*top2(desc_a, desc_b, mask_a, mask_b, uv_a=uv_pred_a,
+                        uv_b=xy_b, dy_tol=radius, dx_lo=-radius,
+                        dx_hi=radius), mask_a,
+                  ratio=ratio, max_distance=max_distance,
+                  cross_check=cross_check)
 
 
 def gather_matches(values_b, matches: Matches, fill=0.0):

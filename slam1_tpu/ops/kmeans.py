@@ -1,9 +1,9 @@
 """Jitted Lloyd-iteration KMeans for visual vocabularies.
 
 Replaces sklearn.KMeans (/root/reference/bag_of_words.py:14,20 — the
-only multicore code in the reference). TPU formulation: descriptors as
-{-1,+1}^D vectors make the assignment step one f32/bf16 matmul on the
-MXU (argmax of dot = argmin of Euclidean on constant-norm vectors), and
+only multicore code in the reference). Formulation: descriptors as
+{-1,+1}^D vectors make the assignment step one f32/bf16 matmul
+(argmax of dot = argmin of Euclidean on constant-norm vectors), and
 the update step a one-hot matmul (segment mean). Fixed iteration count,
 no convergence branching.
 """
@@ -34,7 +34,7 @@ def kmeans_pm1(key, x, mask, k: int, iters: int = 12):
     wm = mask.astype(x.dtype)
 
     def step(cent, _):
-        sim = x @ cent.T                                 # (M,k) MXU
+        sim = x @ cent.T                                 # (M,k)
         assign = jnp.argmax(sim, axis=1)
         onehot = jax.nn.one_hot(assign, k, dtype=x.dtype) * wm[:, None]
         sums = onehot.T @ x                              # (k,D)

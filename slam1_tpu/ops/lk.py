@@ -1,12 +1,13 @@
 """Pyramidal Lucas-Kanade sparse optical flow.
 
-TPU-native replacement for cv2.calcOpticalFlowPyrLK, used by the
+Replacement for cv2.calcOpticalFlowPyrLK, used by the
 reference's alternative frontend (/root/reference/visual_odometry.py:26-29
 and :98-111, also tracking.py:37-53 and keypoint.py:13-32). The
 data-dependent per-point loops become: a static Python loop over pyramid
 levels, a lax.scan over solver iterations, and a vmap over keypoints —
 patch sampling is batched bilinear gathers, and each point solves its own
-2x2 normal equations (pure VPU work; thousands of points in one launch).
+2x2 normal equations (elementwise work; thousands of points in one
+launch).
 
 Status semantics follow the reference's usage: a track survives if the
 final per-patch photometric error is below `max_err` and the tracked

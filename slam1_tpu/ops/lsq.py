@@ -96,10 +96,8 @@ def huber_weights(r2, delta: float):
 
 
 def inv3x3(m):
-    """Batched closed-form 3x3 inverse via the adjugate — pure
-    elementwise VPU work. jnp.linalg.inv/solve lower to a SCALARIZED LU
-    loop on TPU (~100 us per call even for tiny systems), which
-    dominates GN/LM inner loops."""
+    """Batched closed-form 3x3 inverse via the adjugate — one
+    elementwise pass instead of a batched LU in GN/LM inner loops."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]

@@ -1,26 +1,22 @@
-"""Pallas TPU kernels for the hot frontend ops.
+"""Fused Hamming top-2 matcher: a Pallas kernel for the GPU, Triton route.
 
-Two kernels, each with a jnp fallback elsewhere in ops/:
+One program owns a block of `_BN` descriptor rows of A and walks every
+`_BM`-column tile of B inside the block. Each tile's (BN, BM) distance
+matrix comes from one int8 tensor-core product (descriptors unpacked to
+{-1,+1}: dot = bits - 2 * hamming, exact in int32), is gated in
+registers (validity masks and the optional epipolar band or prediction
+window), and is folded into the row's running (best, second, argbest).
+The column-wise argmin that the cross-check needs cannot be carried
+across programs, which run in parallel and in no order: each tile
+contributes its column minima through `atomic_min` on a packed int32
+key, the distance (clamped to 9 bits) above the row index, so the
+smallest distance wins and ties go to the lowest row as in
+`jnp.argmin`. Nothing N x M reaches device memory, and the plain
+path's sort-based `lax.top_k` over an (N, M) int32 matrix is gone.
 
-  - `hamming_top2`: fused brute-force Hamming matching. One int8 MXU
-    contraction per row tile produces the (TN, M) distance tile in VMEM
-    and reduces it to row-wise (best, second-best, argbest) plus a
-    running column-wise argmin (for cross-checking) WITHOUT ever
-    writing the N x M distance matrix to HBM, and without XLA's
-    sort-based lax.top_k. Replaces the reference's FLANN-LSH knn
-    (/root/reference/keypoint.py:44, Point3D.py:33-53) — on the MXU the
-    exhaustive product is cheaper than approximate hashing.
-
-  - `fast_score`: FAST-9 corner score map. The jnp version
-    (ops/fast.py) materializes 16 rolled copies of the image; here each
-    row strip is loaded into VMEM once (with a 3-px halo) and the
-    16-tap circular-arc predicate is evaluated by run-length counting
-    over 16+9 sequential taps — one HBM read + one write per pixel,
-    pure VPU work. Replaces cv2.FAST (/root/reference/orb.py:28-38,
-    visual_odometry.py:86-96).
-
-Both are bit-exact against their jnp references (tests/test_pallas.py)
-and are selected automatically on TPU backends (ops/dispatch helpers).
+`ops/hamming.py` holds the plain reference and picks the kernel on the
+GPU (`ops/dispatch.py`); the `interpret` flag runs it on the CPU for
+tests.
 """
 
 from __future__ import annotations
@@ -30,233 +26,135 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from slam1_tpu.ops.fast import BORDER, CIRCLE
-
-_BIG = 1 << 20  # plain int: pallas kernels cannot capture array constants
-
-
-# ---------------------------------------------------------------------------
-# Fused Hamming top-2 matcher
-# ---------------------------------------------------------------------------
-
-def _hamming_kernel(bits, dy_tol, dx_lo, dx_hi, a_ref, b_ref, ma_ref,
-                    mb_ref, pya_ref, pxa_ref, yb_ref, xb_ref, d1_ref,
-                    d2_ref, idx_ref, cmin_ref, carg_ref):
-    i = pl.program_id(0)
-    tn = a_ref.shape[0]
-    # (TN, M) similarity on the MXU; d = (bits - sim) / 2. Descriptors
-    # are {-1,+1} in bf16 (Mosaic has no int8 matmul path): products are
-    # exact and |sim| <= bits < 2^24, so the f32 accumulation is exact.
-    # B arrives pre-transposed (bits, M): Mosaic only lowers the
-    # standard (m,k)@(k,n) contraction.
-    # Explicit DEFAULT precision: the framework pins the global default
-    # to "highest" (runtime.py), which Mosaic rejects for bf16 operands.
-    sim = jax.lax.dot_general(
-        a_ref[:], b_ref[:], (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.DEFAULT,
-        preferred_element_type=jnp.float32)
-    d = (bits - sim) * 0.5
-    d = jnp.where(mb_ref[:] > 0, d, float(_BIG))           # (1,M) broadcast
-    d = jnp.where(ma_ref[0][:, None] > 0, d, float(_BIG))  # invalid A rows
-    if dy_tol is not None:
-        # Fused geometric gate (epipolar band / prediction window):
-        # candidates outside it never reach the top-2 — elementwise VPU
-        # work on the tile already in VMEM, so gated matching costs the
-        # same as plain matching (the jnp fallback materializes three
-        # extra (N,M) arrays in HBM).
-        dyv = jnp.abs(yb_ref[0][None, :] - pya_ref[0][:, None])
-        dxv = pxa_ref[0][:, None] - xb_ref[0][None, :]
-        bad = (dyv > dy_tol) | (dxv < dx_lo) | (dxv > dx_hi)
-        d = jnp.where(bad, float(_BIG), d)
-
-    # Row-wise best / second-best / argbest (Mosaic argmin needs f32).
-    d1 = jnp.min(d, axis=1)
-    idx = jnp.argmin(d, axis=1).astype(jnp.int32)
-    cols = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
-    d2 = jnp.min(jnp.where(cols == idx[:, None], float(_BIG), d), axis=1)
-    d1_ref[0, :] = d1.astype(jnp.int32)
-    d2_ref[0, :] = d2.astype(jnp.int32)
-    idx_ref[0, :] = idx
-
-    # Column-wise running argmin across row tiles (sequential grid).
-    cmin_t = jnp.min(d, axis=0).astype(jnp.int32)   # (M,)
-    carg_t = jnp.argmin(d, axis=0).astype(jnp.int32) + i * tn
-
-    @pl.when(i == 0)
-    def _():
-        cmin_ref[0, :] = cmin_t
-        carg_ref[0, :] = carg_t
-
-    @pl.when(i > 0)
-    def _():
-        prev = cmin_ref[0, :]
-        take = cmin_t < prev
-        cmin_ref[0, :] = jnp.where(take, cmin_t, prev)
-        carg_ref[0, :] = jnp.where(take, carg_t, carg_ref[0, :])
+_BIG = 1 << 20            # distance of a masked or gated pair
+_INT_MAX = 0x7FFFFFFF
+_ROW_BITS = 22            # packed column key: (min(d, 511) << 22) | row
+# A rows per program: 16 is the least a tensor-core product takes, and
+# at N = 2688 it gives 168 programs for the H100's 132 SMs.
+_BN = 16
+_BM = 128                 # B columns per tile of the inner loop (<= 256:
+                          # a column index fits in the key's low 8 bits)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "dy_tol",
-                                             "dx_lo", "dx_hi"))
+def _hamming_kernel(bits, gate, a_ref, b_ref, ma_ref, mb_ref, xa_ref,
+                    ya_ref, xb_ref, yb_ref, _ckey_in, d1_ref, d2_ref,
+                    idx_ref, ckey_ref):
+    bn = a_ref.shape[0]
+    n_tiles = b_ref.shape[0] // _BM
+    row0 = pl.program_id(0) * bn
+    a = a_ref[...]
+    row_ok = ma_ref[...] != 0
+    rows = row0 + jax.lax.broadcasted_iota(jnp.int32, (bn, _BM), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (bn, _BM), 1)
+    if gate is not None:
+        dy_tol, dx_lo, dx_hi = gate
+        xa = xa_ref[...][:, None]
+        ya = ya_ref[...][:, None]
+
+    def tile(j, carry):
+        d1, d2, idx = carry
+        cs = pl.ds(pl.multiple_of(j * _BM, _BM), _BM)
+        sim = pl.dot(a, b_ref[cs, :], trans_b=True,
+                     precision=jax.lax.Precision.DEFAULT)   # int32 (BN,BM)
+        d = (bits - sim) >> 1
+        ok = row_ok[:, None] & (mb_ref[cs] != 0)[None, :]
+        if gate is not None:
+            dx = xa - xb_ref[cs][None, :]
+            ok = ok & (jnp.abs(yb_ref[cs][None, :] - ya) <= dy_tol) \
+                & (dx >= dx_lo) & (dx <= dx_hi)
+        d = jnp.where(ok, d, _BIG)
+
+        # Row top-2 of the tile from two plain min-reductions of a packed
+        # (distance << 8) | column key: the lowest column wins a tie, as
+        # in lax.top_k, and a tied second entry gives d2 == d1.
+        rk = (d << 8) | cols
+        k1 = jnp.min(rk, axis=1)
+        k2 = jnp.min(jnp.where(rk == k1[:, None], _INT_MAX, rk), axis=1)
+        t1, ti, t2 = k1 >> 8, k1 & 255, k2 >> 8
+        better = t1 < d1                  # strict: earlier tiles win ties
+        d2 = jnp.where(better, jnp.minimum(d1, t2), jnp.minimum(d2, t1))
+        d1 = jnp.where(better, t1, d1)
+        idx = jnp.where(better, ti + j * _BM, idx)
+
+        key = (jnp.minimum(d, 511) << _ROW_BITS) | rows
+        plgpu.atomic_min(ckey_ref, cs, jnp.min(key, axis=0))
+        return d1, d2, idx
+
+    big = jnp.full((bn,), _BIG, jnp.int32)
+    d1, d2, idx = jax.lax.fori_loop(
+        0, n_tiles, tile, (big, big, jnp.zeros((bn,), jnp.int32)))
+    d1_ref[...] = d1
+    d2_ref[...] = d2
+    idx_ref[...] = idx
+
+
+@functools.partial(jax.jit, static_argnames=("dy_tol", "dx_lo", "dx_hi",
+                                             "interpret"))
 def hamming_top2(a_pm1, b_pm1, mask_a, mask_b, *, uv_a=None, uv_b=None,
                  dy_tol=None, dx_lo=0.0, dx_hi=0.0,
                  interpret: bool = False):
-    """Fused Hamming top-2, optionally with a fused geometric gate.
+    """Fused Hamming top-2 of every A row over B, with an optional gate.
 
     Args:
-      a_pm1: (N, B) int8 descriptors unpacked to {-1,+1}; N % 128 == 0.
-      b_pm1: (M, B) int8; M % 128 == 0.
-      mask_a: (N,) bool — invalid rows get sentinel distance.
-      mask_b: (M,) bool — invalid columns get sentinel distance.
-      uv_a/uv_b: optional (N,2)/(M,2) float coords — for row a, column
-        b is eligible only if |y_b - y_a| <= dy_tol and
-        dx_lo <= x_a - x_b <= dx_hi (the epipolar band with uv_a = A's
-        positions; a prediction window with uv_a = predicted positions
-        and dx_lo = -dx_hi = -radius). dy_tol/dx_lo/dx_hi are STATIC.
+      a_pm1: (N, bits) int8 descriptors unpacked to {-1,+1}; any N.
+      b_pm1: (M, bits) int8; any M.
+      mask_a, mask_b: (N,), (M,) bool; invalid rows and columns get the
+        sentinel distance 2^20.
+      uv_a, uv_b: optional (N,2), (M,2) float pixel coordinates. Column
+        b is eligible for row a only if |y_b - y_a| <= dy_tol and
+        dx_lo <= x_a - x_b <= dx_hi: the epipolar band with uv_a = A's
+        positions, a prediction window with uv_a = predicted positions
+        and dx_lo = -dx_hi = -radius. dy_tol, dx_lo, dx_hi are static.
     Returns:
-      d1 (N,), d2 (N,), idx (N,) int32 row-wise best/second/argbest and
-      col_best (M,) int32 column-wise argmin (for cross-checking, gated
-      by the same geometry).
+      d1, d2, idx: (N,) int32 best and second-best distance and argbest
+        per row; col_best: (M,) int32 argmin row of each column, under
+        the same masks and gate (for the cross-check).
     """
     n, bits = a_pm1.shape
     m = b_pm1.shape[0]
-    tn = 128
-    assert n % tn == 0 and m % 128 == 0, (n, m)
     assert (uv_a is None) == (dy_tol is None)
-    grid = n // tn
-    a_pm1 = a_pm1.astype(jnp.bfloat16)   # ±1: exact; Mosaic lacks int8 mmul
-    b_t = b_pm1.astype(jnp.bfloat16).T   # (bits, M) for the (m,k)@(k,n) MXU
+    bn = _BN
+    n_pad = -(-n // bn) * bn
+    m_pad = -(-m // _BM) * _BM
+
+    def pad(x, size, value=0):
+        return jnp.pad(x, [(0, size - x.shape[0])] + [(0, 0)] * (x.ndim - 1),
+                       constant_values=value)
+
+    a = pad(a_pm1.astype(jnp.int8), n_pad)
+    b = pad(b_pm1.astype(jnp.int8), m_pad)
+    ma = pad(mask_a.astype(jnp.int32), n_pad)     # pad rows and columns
+    mb = pad(mask_b.astype(jnp.int32), m_pad)     # are masked out
     if uv_a is None:
-        pya = pxa = jnp.zeros((1, n), jnp.float32)
-        yb = xb = jnp.zeros((1, m), jnp.float32)
-        gate = (None, 0.0, 0.0)
+        xa = ya = jnp.zeros((n_pad,), jnp.float32)
+        xb = yb = jnp.zeros((m_pad,), jnp.float32)
+        gate = None
     else:
-        pya = uv_a[:, 1].astype(jnp.float32).reshape(1, n)
-        pxa = uv_a[:, 0].astype(jnp.float32).reshape(1, n)
-        yb = uv_b[:, 1].astype(jnp.float32).reshape(1, m)
-        xb = uv_b[:, 0].astype(jnp.float32).reshape(1, m)
+        xa = pad(uv_a[:, 0].astype(jnp.float32), n_pad)
+        ya = pad(uv_a[:, 1].astype(jnp.float32), n_pad)
+        xb = pad(uv_b[:, 0].astype(jnp.float32), m_pad)
+        yb = pad(uv_b[:, 1].astype(jnp.float32), m_pad)
         gate = (float(dy_tol), float(dx_lo), float(dx_hi))
+    ckey0 = jnp.full((m_pad,), _INT_MAX, jnp.int32)
 
-    d1, d2, idx, _, carg = pl.pallas_call(
-        functools.partial(_hamming_kernel, int(bits), *gate),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((tn, bits), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bits, m), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            # Row-wise outputs live in one (1, N) row so every block
-            # shape is (1, tn) with the leading dim equal to the full
-            # array dim (Mosaic requires the last two block dims to be
-            # (8,128)-divisible or equal to the array's).
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, m), jnp.int32),
-            jax.ShapeDtypeStruct((1, m), jnp.int32),
-        ],
+    rows = pl.BlockSpec((bn,), lambda i: (i,))
+    whole_b = pl.BlockSpec((m_pad,), lambda i: (0,))
+    d1, d2, idx, ckey = pl.pallas_call(
+        functools.partial(_hamming_kernel, bits, gate),
+        grid=(n_pad // bn,),
+        in_specs=[pl.BlockSpec((bn, bits), lambda i: (i, 0)),
+                  pl.BlockSpec((m_pad, bits), lambda i: (0, 0)),
+                  rows, whole_b, rows, rows, whole_b, whole_b, whole_b],
+        out_specs=[rows, rows, rows, whole_b],
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.int32)] * 3
+        + [jax.ShapeDtypeStruct((m_pad,), jnp.int32)],
+        input_output_aliases={8: 3},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(a_pm1, b_t, mask_a.astype(jnp.int32).reshape(1, n),
-      mask_b.astype(jnp.int32).reshape(1, m), pya, pxa, yb, xb)
-    return (d1.reshape(n), d2.reshape(n), idx.reshape(n), carg.reshape(m))
-
-
-# ---------------------------------------------------------------------------
-# FAST-9 score map
-# ---------------------------------------------------------------------------
-
-def _fast_kernel(threshold, arc, h_pad, a_ref, o_ref):
-    """One (halo_strip, W) -> (strip, W) FAST score tile.
-
-    Run-length counting around the circle: taps are visited in circular
-    order for 16 + (arc-1) steps; a pixel is a corner if any window of
-    `arc` consecutive taps is all-bright (or all-dark). Score = sum of
-    |diff|-threshold over each polarity (OpenCV's ranking variant),
-    matching ops/fast.fast_score bit-for-bit.
-    """
-    _, th, w = o_ref.shape
-    a = a_ref[0]
-    c = a[BORDER:BORDER + th, :]                        # strip centers
-    run_b = jnp.zeros((th, w), jnp.int32)
-    run_d = jnp.zeros((th, w), jnp.int32)
-    corner = jnp.zeros((th, w), jnp.bool_)
-    score_b = jnp.zeros((th, w), jnp.float32)
-    score_d = jnp.zeros((th, w), jnp.float32)
-
-    n_taps = len(CIRCLE) + arc - 1
-    for t in range(n_taps):
-        dy, dx = CIRCLE[t % len(CIRCLE)]
-        # Shifted tap view; x wraps via roll (border masked outside).
-        rows = a[BORDER + dy:BORDER + dy + th, :]
-        tap = jnp.roll(rows, -dx, axis=1) if dx else rows
-        diff = tap - c
-        bright = diff > threshold
-        dark = diff < -threshold
-        run_b = jnp.where(bright, run_b + 1, 0)
-        run_d = jnp.where(dark, run_d + 1, 0)
-        corner = corner | (run_b >= arc) | (run_d >= arc)
-        if t < len(CIRCLE):
-            score_b += jnp.maximum(diff - threshold, 0.0)
-            score_d += jnp.maximum(-diff - threshold, 0.0)
-
-    score = jnp.maximum(score_b, score_d)
-    score = jnp.where(corner, score, 0.0)
-    # Border suppression (x only; y handled by halo/global masking).
-    i = pl.program_id(0)
-    ys = jax.lax.broadcasted_iota(jnp.int32, (th, w), 0) + i * th
-    xs = jax.lax.broadcasted_iota(jnp.int32, (th, w), 1)
-    inside = ((ys >= BORDER) & (ys < h_pad - BORDER)
-              & (xs >= BORDER) & (xs < w - BORDER))
-    o_ref[0, :, :] = jnp.where(inside, score, 0.0)
-
-
-@functools.partial(jax.jit, static_argnames=("threshold", "arc", "strip",
-                                             "interpret"))
-def fast_score(img, threshold: float, arc: int = 9, strip: int = 48,
-               interpret: bool = False):
-    """FAST corner score map via the strip-blocked Pallas kernel.
-
-    Same contract as ops.fast.fast_score: (H,W) float32 -> (H,W) score.
-    """
-    h, w = img.shape
-    n_strips = -(-h // strip)
-    h_pad = n_strips * strip
-    # Pad bottom to a strip multiple plus a halo ring top+bottom. Scores
-    # in padding are killed by the `inside` mask (h passed via h_pad of
-    # the REAL image extent below).
-    img_p = jnp.pad(img, ((BORDER, BORDER + h_pad - h), (0, 0)))
-
-    # Build overlapping halo strips (n, strip + 2*BORDER, W) by gather.
-    starts = jnp.arange(n_strips) * strip
-    offs = jnp.arange(strip + 2 * BORDER)
-    rows = starts[:, None] + offs[None, :]
-    strips = img_p[rows]                                # (n, strip+6, W)
-
-    out = pl.pallas_call(
-        functools.partial(_fast_kernel, float(threshold), arc, h),
-        grid=(n_strips,),
-        in_specs=[pl.BlockSpec((1, strip + 2 * BORDER, w),
-                               lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, strip, w), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_strips, strip, w), jnp.float32),
-        interpret=interpret,
-    )(strips)
-    return out.reshape(h_pad, w)[:h]
+        name="hamming_top2",
+    )(a, b, ma, mb, xa, ya, xb, yb, ckey0)
+    col_best = ckey[:m] & ((1 << _ROW_BITS) - 1)
+    return d1[:n], d2[:n], idx[:n], col_best

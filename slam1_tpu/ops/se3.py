@@ -111,7 +111,7 @@ def log_se3(T):
     R, t = to_Rt(T)
     phi = log_so3(R)
     V = _v_matrix(phi)
-    # closed-form 3x3 inverse: jnp.linalg.solve scalarizes to LU on TPU
+    # closed-form 3x3 inverse instead of jnp.linalg.solve's LU
     rho = (inv3x3(V) @ t[..., None])[..., 0]
     return jnp.concatenate([rho, phi], axis=-1)
 

@@ -215,7 +215,7 @@ def _local_shard_step(poses, points, cam_idx, lm_idx, uv, w, ur, wr, cam,
     eye3 = jnp.eye(3, dtype=r.dtype)
     Hcc_d = Hcc + lam * _diag_only(Hcc) + 1e-6 * eye6
     Hll_d = Hll + lam * _diag_only(Hll) + 1e-6 * eye3
-    Hll_inv = _inv3x3(Hll_d)   # closed-form: no scalarized LU on TPU
+    Hll_inv = _inv3x3(Hll_d)   # closed-form, no batched LU
 
     corr = jnp.zeros((C, 6), r.dtype).at[ci].add(
         jnp.einsum("oij,oj->oi", W,

@@ -8,7 +8,7 @@ odometry edges that start inside its block. The only cross-device
 coupling of the chain is at block boundaries, handled ring-style:
 
   - each GN/CG step ppermutes every device's FIRST pose/delta to its
-    left neighbour (one (6,) / (4,4) halo per step over ICI), and
+    left neighbour (one (6,) / (4,4) halo per step), and
   - boundary gradient contributions ride the reverse ppermute.
 
 Loop-closure edges connect arbitrary pose pairs; with a fixed small

@@ -7,7 +7,10 @@ Axes:
   "lm"    — landmark/observation sharding for distributed bundle
             adjustment (the keyframe/map-block partitioning of
             SURVEY.md §7 step 8; camera states stay replicated and
-            camera-side reductions ride psum over ICI).
+            camera-side reductions ride psum).
+
+The cards of one host are joined all to all (NVLink), so the mesh is a
+plain reshape of the device list that follows the algorithm.
 """
 
 from __future__ import annotations
@@ -17,31 +20,6 @@ from typing import Optional
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-
-def init_multihost(coordinator_address: Optional[str] = None,
-                   num_processes: Optional[int] = None,
-                   process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up (SURVEY.md §7 step 8): one JAX process per
-    host, devices pooled into one global mesh; collectives ride ICI
-    within a slice and DCN across hosts. On TPU pods the three
-    arguments are auto-detected from the environment; on CPU/GPU
-    clusters pass them explicitly. Idempotent."""
-    try:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-    except RuntimeError as e:
-        # Only idempotency is forgiven; a real bring-up failure (e.g.
-        # backends already initialized by a sitecustomize, coordinator
-        # unreachable) must surface, not leave a silent 1-process run.
-        if "already" not in str(e).lower():
-            raise
-    if num_processes and jax.process_count() != num_processes:
-        raise RuntimeError(
-            f"multi-host init ineffective: process_count()="
-            f"{jax.process_count()} != {num_processes} (were JAX "
-            f"backends initialized before initialize()?)")
 
 
 def make_mesh(n_devices: Optional[int] = None, lm_axis: Optional[int] = None
@@ -56,21 +34,7 @@ def make_mesh(n_devices: Optional[int] = None, lm_axis: Optional[int] = None
             if n % cand == 0 and n >= cand:
                 lm_axis = cand
                 break
-    batch_axis = n // lm_axis
-    if jax.process_count() > 1 and n == len(jax.devices()):
-        # Multi-host: lay the mesh out so the lm axis (the
-        # communication-heavy BA axis) stays WITHIN each host's slice
-        # (ICI) and only the batch axis crosses hosts (DCN) — frames
-        # are per-host data anyway (each host loads its own shard).
-        from jax.experimental import mesh_utils
-        try:
-            grid = mesh_utils.create_hybrid_device_mesh(
-                (batch_axis // jax.process_count() or 1, lm_axis),
-                (jax.process_count(), 1))
-        except Exception:
-            grid = np.array(devs).reshape(batch_axis, lm_axis)
-        return Mesh(grid, axis_names=("batch", "lm"))
-    grid = np.array(devs).reshape(batch_axis, lm_axis)
+    grid = np.array(devs).reshape(n // lm_axis, lm_axis)
     return Mesh(grid, axis_names=("batch", "lm"))
 
 

@@ -2,17 +2,17 @@
 
 Two things happen at import:
 
-  1. Matmul precision is pinned to "highest". On TPU (and on this XLA
-     CPU build) the DEFAULT matmul precision computes f32 contractions
-     through bf16 passes — fine for neural nets, fatal for chained SE(3)
+  1. Matmul precision is pinned to "highest". The DEFAULT precision of
+     an f32 contraction is TF32 on the GPU (and bf16 passes on some XLA
+     CPU builds) — fine for neural nets, fatal for chained SE(3)
      geometry (a 3x3 @ 3x3 at bf16 loses ~3e-2 absolute). Hot large
-     contractions that tolerate bf16 (descriptor matmuls, blurs) opt
-     back down explicitly via `precision=jax.lax.Precision.DEFAULT`
-     or bf16/int8 operands.
+     contractions that tolerate it (descriptor matmuls, blurs, one-hot
+     selections) opt back down explicitly via
+     `precision=jax.lax.Precision.DEFAULT` or int8/bf16 operands.
 
-  2. A persistent compilation cache is enabled (XLA CPU compiles are
-     tens of seconds on small hosts; the cache makes test re-runs and
-     CLI restarts cheap). Disable with SLAM1_TPU_NO_CACHE=1.
+  2. A persistent compilation cache is enabled, so test re-runs and CLI
+     restarts skip compilation: in JAX_COMPILATION_CACHE_DIR when that
+     is set (JAX reads it itself), otherwise in <checkout>/.jax_cache.
 """
 
 from __future__ import annotations
@@ -23,14 +23,9 @@ import jax
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
-if not os.environ.get("SLAM1_TPU_NO_CACHE"):
-    cache_dir = os.environ.get(
-        "SLAM1_TPU_CACHE_DIR",
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
         os.path.join(os.path.dirname(os.path.dirname(__file__)),
                      ".jax_cache"))
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except (OSError, AttributeError):  # read-only fs / old jax: best effort
-        pass
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -3,7 +3,7 @@
 Replaces the three duplicated loaders in the reference
 (/root/reference/visual_odometry_solution_methods.py:9-33,
 tracking.py:5-7, visual_odometry.py:31-56). Host-side numpy only; images
-are padded to the TPU-friendly canvas and streamed to device by the
+are padded to the static canvas and streamed to device by the
 caller (or by the native C++ prefetcher in native/, when built).
 """
 
@@ -71,7 +71,7 @@ def load_image(path: str) -> np.ndarray:
 
 
 def pad_to_canvas(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Zero-pad an image up to the static TPU canvas."""
+    """Zero-pad an image up to the static canvas."""
     h, w = img.shape
     out = np.zeros((height, width), np.float32)
     out[:min(h, height), :min(w, width)] = img[:height, :width]

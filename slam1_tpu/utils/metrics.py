@@ -79,3 +79,26 @@ def profiler_trace(logdir: Optional[str]):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_device() -> dict:
+    """The device as JAX reports it, and the card's name and power limit
+    as nvidia-smi gives them (a child process that does not import JAX).
+    Exits the process when JAX's default device is not a GPU: a run that
+    measures or checks the card must not fall back to the CPU."""
+    import subprocess
+
+    import jax
+    devs = jax.devices()
+    d0 = devs[0]
+    print(f"device: platform={d0.platform} kind={d0.device_kind} "
+          f"count={len(devs)}", flush=True)
+    if d0.platform != "gpu":
+        sys.exit(f"needs a GPU; JAX found {d0.platform!r}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)                  # as nvidia-smi gives it
+    return {"platform": d0.platform, "kind": d0.device_kind,
+            "count": len(devs), "card": card}

@@ -1,4 +1,3 @@
-import cv2
 import jax.numpy as jnp
 import numpy as np
 
@@ -32,6 +31,7 @@ def test_fast_silent_on_flat_and_edges():
 
 def test_fast_against_opencv_detections():
     """Our corner set should substantially overlap OpenCV FAST-9/16."""
+    import cv2
     rng = np.random.default_rng(0)
     img = (rng.uniform(0, 1, (120, 160)) > 0.995).astype(np.float32)
     img = cv2.GaussianBlur(img * 255.0, (5, 5), 1.0)
@@ -64,12 +64,12 @@ def test_nms_keeps_single_peak():
 
 
 def test_runs_at_least_circular():
-    # ring with run of exactly 9 set bits crossing the wrap boundary
-    x = np.zeros((16, 1), bool)
+    """A run of exactly 9 brighter taps that crosses the circle's wrap
+    point (taps 14..6) makes a corner; FAST-10 rejects the same pixel."""
+    img = np.full((16, 16), 0.5, np.float32)
     for i in range(9):
-        x[(14 + i) % 16] = True
-    out = np.asarray(fast._runs_at_least(jnp.asarray(x), 9))
-    assert out[14, 0]          # run starts at index 14
-    assert not out[15, 0] or out.sum() == 1  # only one start position
-    out8 = np.asarray(fast._runs_at_least(jnp.asarray(x), 10))
-    assert not out8.any()
+        dy, dx = fast.CIRCLE[(14 + i) % 16]
+        img[8 + dy, 8 + dx] = 1.0
+    img = jnp.asarray(img)
+    assert float(fast.fast_score(img, 0.2)[8, 8]) > 0
+    assert float(fast.fast_score(img, 0.2, arc=10)[8, 8]) == 0

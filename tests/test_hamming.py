@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam1_tpu.ops import hamming
 
@@ -72,3 +73,85 @@ def test_match_is_jittable():
     f = jax.jit(lambda x, y: hamming.match(x, y))
     m = f(a, a)
     assert bool(np.asarray(m.mask).all())
+
+
+# The three matchers as they were written before their ratio-test and
+# cross-check tails were merged into hamming.accept: the reference for
+# the merged helper on both paths (plain jnp, and the kernel in
+# interpret mode).
+def _old_match(da, db, ma, mb, ratio, max_distance):
+    d = hamming.distance_matrix(da, db, ma, mb)
+    return _old_tail(d, ma, ratio, max_distance)
+
+
+def _old_match_epipolar(da, db, xa, xb, ma, mb, ratio, max_distance,
+                        dy_tol, lo, hi):
+    d = hamming.distance_matrix(da, db, ma, mb)
+    dy = jnp.abs(xa[:, 1:2] - xb[None, :, 1])
+    disp = xa[:, 0:1] - xb[None, :, 0]
+    d = jnp.where((dy > dy_tol) | (disp < lo) | (disp > hi), 1 << 20, d)
+    return _old_tail(d, ma, ratio, max_distance)
+
+
+def _old_match_windowed(da, db, ua, xb, ma, mb, ratio, max_distance,
+                        radius):
+    d = hamming.distance_matrix(da, db, ma, mb)
+    dy = jnp.abs(ua[:, 1:2] - xb[None, :, 1])
+    dx = ua[:, 0:1] - xb[None, :, 0]
+    d = jnp.where((dy > radius) | (jnp.abs(dx) > radius), 1 << 20, d)
+    return _old_tail(d, ma, ratio, max_distance)
+
+
+def _old_tail(d, mask_a, ratio, max_distance):
+    neg_top2, idx_top2 = jax.lax.top_k(-d, 2)
+    d1, d2 = -neg_top2[:, 0], -neg_top2[:, 1]
+    best = idx_top2[:, 0]
+    ok = (d1 <= max_distance) & (d1.astype(jnp.float32)
+                                 < ratio * d2.astype(jnp.float32))
+    col_best = jnp.argmin(d, axis=0)
+    ok = ok & (col_best[best] == jnp.arange(d.shape[0]))
+    return best, d1, ok & mask_a
+
+
+@pytest.mark.parametrize("path", ["plain", "kernel"])
+@pytest.mark.parametrize("form", ["match", "epipolar", "windowed"])
+def test_merged_tail_matches_old_call_sites(monkeypatch, form, path):
+    if path == "kernel":
+        import functools
+
+        from slam1_tpu.ops import pallas_kernels
+        monkeypatch.setattr(hamming, "use_kernels", lambda: True)
+        monkeypatch.setattr(pallas_kernels, "hamming_top2", functools.partial(
+            pallas_kernels.hamming_top2, interpret=True))
+    rng = np.random.default_rng(11)
+    n, m = 150, 140
+    # Near-duplicate descriptors so the gates and the ratio test matter.
+    base = rand_desc(rng, m)
+    flip = rng.random((n, 32)) < 0.02
+    da = jnp.asarray(base[rng.integers(0, m, n)]
+                     ^ (flip * rng.integers(0, 256, (n, 32))).astype(np.uint8))
+    db = jnp.asarray(base)
+    ma = jnp.asarray(rng.random(n) > 0.1)
+    mb = jnp.asarray(rng.random(m) > 0.1)
+    xa = jnp.asarray(rng.uniform(0, 200, (n, 2)).astype(np.float32))
+    xb = jnp.asarray(rng.uniform(0, 200, (m, 2)).astype(np.float32))
+    kw = dict(ratio=0.8, max_distance=64)
+    if form == "match":
+        got = hamming.match(da, db, ma, mb, **kw)
+        ref = _old_match(da, db, ma, mb, **kw)
+    elif form == "epipolar":
+        got = hamming.match_epipolar(da, db, xa, xb, ma, mb, dy_tol=40.0,
+                                     min_disparity=-50.0,
+                                     max_disparity=80.0, **kw)
+        ref = _old_match_epipolar(da, db, xa, xb, ma, mb, dy_tol=40.0,
+                                  lo=-50.0, hi=80.0, **kw)
+    else:
+        got = hamming.match_windowed(da, db, xa, xb, ma, mb, radius=60.0,
+                                     **kw)
+        ref = _old_match_windowed(da, db, xa, xb, ma, mb, radius=60.0,
+                                  **kw)
+    best, d1, ok = (np.asarray(x) for x in ref)
+    np.testing.assert_array_equal(np.asarray(got.mask), ok)
+    np.testing.assert_array_equal(np.asarray(got.distance), d1)
+    np.testing.assert_array_equal(np.asarray(got.idx)[ok], best[ok])
+    assert ok.sum() > 10

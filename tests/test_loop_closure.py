@@ -71,7 +71,7 @@ def test_verify_loop_pair_rejects_unrelated_frame(rng):
 
 
 def test_place_query_retrieves_revisited_frame(rng):
-    """Brute-force MXU place recognition: the snapshot of a revisited
+    """Brute-force place recognition: the snapshot of a revisited
     view must outscore unrelated views and rank first (the production
     retrieval path; BoW histograms are the small-config fallback)."""
     from slam1_tpu.models.loop_closure import place_query

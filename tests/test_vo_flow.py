@@ -1,4 +1,4 @@
-"""End-to-end flow-based VO (FAST + LK + dense disparity — the TPU
+"""End-to-end flow-based VO (FAST + LK + dense disparity — the
 counterpart of the reference's standalone visual_odometry.py, SURVEY C18)."""
 
 import jax

@@ -1,7 +1,7 @@
 """Distributed BA on the REAL config-4 problem (r4 VERDICT missing #3).
 
-Loads a BENCH_GLOBAL checkpoint (the 1000-keyframe / ~48k-observation
-problem produced by tools/global_ba_scale.py --ckpt), partitions it with
+Loads a config-4 checkpoint (the 1000-keyframe problem produced by
+tools/global_ba_scale.py --ckpt), partitions it with
 `partition_problem_device` over an 8-device mesh, runs
 `distributed_bundle_adjust`, and compares the LM cost trajectory and
 final poses against the single-chip `bundle_adjust` on the SAME problem:
@@ -15,12 +15,12 @@ The graduated outlier cut (BAConfig.outlier_px) exists only in the
 single-chip LM loop, so both sides run with outlier_px=0 here — the
 point is solver parity at scale, not robustness tuning.
 
-Default backend: 8 virtual CPU devices (the environment has one real
-chip); the partitioning/collective code is identical on real ICI.
+Backend: --devices virtual CPU devices. `python chip_smoke.py --cards 4`
+runs the same comparison on four cards, on a problem made from a seed.
 
 Usage:
   python tools/dist_ba_scale.py --ckpt .scratch/gba2000.npz \
-      [--out DIST_BA_SCALE.json] [--lm-iters 6] [--cg-iters 32]
+      [--out PATH.json] [--lm-iters 6] [--cg-iters 32]
 """
 
 from __future__ import annotations
@@ -45,17 +45,14 @@ def main() -> int:
     ap.add_argument("--lm-iters", type=int, default=6)
     ap.add_argument("--cg-iters", type=int, default=32)
     ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--cpu", action="store_true", default=True)
     args = ap.parse_args()
     os.chdir(_REPO)
 
-    if args.cpu:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={args.devices}")
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "")
+        + f" --xla_force_host_platform_device_count={args.devices}")
     import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from slam1_tpu.models import pipeline
@@ -149,8 +146,7 @@ def main() -> int:
         "dist_wall_s": round(t_dist, 2),
         "single_wall_s": round(t_single, 2),
         "backend": jax.default_backend(),
-        "note": ("8 virtual CPU devices (single-host environment); "
-                 "identical partition/psum pattern on real ICI"),
+        "note": f"{args.devices} virtual CPU devices",
     }
     print(json.dumps(out))
     if args.out:

@@ -10,8 +10,7 @@ the wrong frame" from "verification is weak even on the right frame".
 Usage:
   python tools/loop_grid.py --ckpt .scratch/gba2000.npz \
       --hits 1823,1887,1311 [--span 16]
-(runs on the default backend; TPU recommended — each slate is one
-program.)
+(runs on the default backend; each slate is one program.)
 """
 
 from __future__ import annotations

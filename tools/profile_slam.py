@@ -1,4 +1,4 @@
-"""Per-stage timing of the full SLAM pipeline step on the real chip."""
+"""Per-stage timing of the full SLAM pipeline step on the default backend."""
 import os
 import sys
 import time

@@ -1,4 +1,4 @@
-"""Per-stage timing of vo_step on the real chip."""
+"""Per-stage timing of vo_step on the default backend."""
 import time, functools
 import jax, jax.numpy as jnp
 from slam1_tpu.config import SlamConfig
@@ -48,12 +48,8 @@ feats, obs = timeit("stereo_frontend (2x detect+match)", f, left, right)
 det = jax.jit(lambda im: detector.detect(im, dcfg, cfg.image.valid_height, cfg.image.valid_width))
 featl = timeit("detect (one image)", det, left)
 
-# fast score pallas
-from slam1_tpu.ops import pallas_kernels
-fs = jax.jit(lambda im: pallas_kernels.fast_score(im, dcfg.fast_threshold, arc=dcfg.fast_arc))
-score = timeit("pallas fast_score", fs, left)
 fsj = jax.jit(lambda im: fast.fast_score(im, dcfg.fast_threshold, arc=dcfg.fast_arc))
-timeit("jnp fast_score", fsj, left)
+score = timeit("fast_score", fsj, left)
 nmsf = jax.jit(lambda s: fast.nms(s, dcfg.nms_radius))
 timeit("nms", nmsf, score)
 
@@ -78,10 +74,10 @@ def topk(score):
     return jax.lax.top_k(tiles, dcfg.kp_per_tile)
 timeit("per-tile top_k", jax.jit(topk), score)
 
-# hamming match (fallback path: 2000 not mult of 128)
+# hamming match (the fused kernel on a GPU, plain jnp on the CPU)
 mf = jax.jit(lambda a, b, ma, mb: hamming.match(a, b, ma, mb, ratio=cfg.matcher.ratio,
              max_distance=cfg.matcher.max_hamming, cross_check=cfg.matcher.cross_check))
-timeit("hamming.match 2000x2000 (fallback)", mf, featl.desc, featl.desc, featl.mask, featl.mask)
+timeit("hamming.match 2000x2000", mf, featl.desc, featl.desc, featl.mask, featl.mask)
 
 # pnp
 tt = jax.jit(lambda k, po, cf: temporal_track(k, po, cf, cam, cfg))
